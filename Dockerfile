@@ -1,10 +1,8 @@
-# slacken_tpu container (reference: Dockerfile — Spark image + assembly jar;
-# here: python + jax with the TPU plugin + this package).
+# slacken container (reference: Dockerfile — Spark image + assembly jar;
+# here: python + jax with its CUDA 12 wheels + this package).
 #
-# Build:  docker build -t slacken-tpu .
-# Run:    docker run -v /data:/data slacken-tpu classify -i /data/idx ...
-# On a Cloud TPU VM the libtpu device nodes are exposed with --privileged
-# (or the TPU device plugin under GKE).
+# Build:  docker build -t slacken .
+# Run:    docker run --gpus all -v /data:/data slacken classify -i /data/idx ...
 FROM python:3.12-slim
 
 # gzip for subprocess inflate; g++/make build the native parser extension
@@ -12,21 +10,21 @@ RUN apt-get update \
   && apt-get install -y --no-install-recommends gzip g++ make \
   && rm -rf /var/lib/apt/lists/*
 
-WORKDIR /opt/slacken_tpu
+WORKDIR /opt/slacken
 
-# TPU wheel set; for CPU-only use, swap to plain 'jax'
-RUN pip install --no-cache-dir "jax[tpu]" \
-      -f https://storage.googleapis.com/jax-releases/libtpu_releases.html \
+# CUDA 12 wheel set (CUDA libraries come as pip packages; the host needs
+# only the NVIDIA driver); for CPU-only use, swap to plain 'jax==0.9.0'
+RUN pip install --no-cache-dir "jax[cuda12]==0.9.0" \
   && pip install --no-cache-dir numpy fsspec
 
 COPY pyproject.toml ./
-COPY slacken_tpu ./slacken_tpu
+COPY slacken ./slacken
 COPY native ./native
-COPY slacken-tpu.sh ./
+COPY slacken.sh ./
 RUN pip install --no-cache-dir .
 
 ENV STPU_TMP=/data/scratch
-ENV STPU_JIT_CACHE=/data/jit_cache
+ENV JAX_COMPILATION_CACHE_DIR=/data/jit_cache
 
-ENTRYPOINT ["/opt/slacken_tpu/slacken-tpu.sh"]
+ENTRYPOINT ["/opt/slacken/slacken.sh"]
 CMD ["--help"]

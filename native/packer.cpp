@@ -1,9 +1,9 @@
-// slacken_tpu native IO: FASTA/FASTQ parsing + 2-bit code packing.
+// slacken native IO: FASTA/FASTQ parsing + 2-bit code packing.
 //
 // The reference framework runs entirely on the JVM with Spark executors
 // doing string work; here the host-side hot path (feeding packed base codes
-// to the TPU) is native C++ behind a C ABI consumed via ctypes
-// (slacken_tpu/native.py). Parsing + encoding run at memory bandwidth,
+// to the device) is native C++ behind a C ABI consumed via ctypes
+// (slacken/native.py). Parsing + encoding run at memory bandwidth,
 // leaving Python to orchestrate device batches only.
 //
 // Encoding matches ops/encode.py: A=0 C=1 G=2 T=U=3, INVALID=4
@@ -304,7 +304,7 @@ int64_t stpu_hit_lines(const uint8_t* codes, const int32_t* wt, int64_t n_rows,
 }
 
 // Runs-based variant: the device already reduced each read to its ordered
-// hit runs (slacken_tpu/ops/hitruns.py), so each row is O(runs) instead of
+// hit runs (slacken/ops/hitruns.py), so each row is O(runs) instead of
 // O(row_stride). values[r*cap+j] = (taxon+2)<<1 | mate (taxon -1 = 'A');
 // counts parallel; totals[r*2+m] = per-mate k-mer sums. Same private-slot
 // output contract as stpu_hit_lines with cap_row supplied by the caller.
@@ -407,8 +407,8 @@ int64_t stpu_output_lines_runs(
 }
 
 // Full Kraken output lines from DENSE window taxa ([B, L] i32 + codes),
-// the accelerator detailed-mode default (the hit-runs device reduction is
-// measured slower than the dense transfer on TPU — see classify.py).
+// the detailed-mode default (the hit-runs device reduction is the opt-in
+// alternative — see classify.py).
 // Line format per Classifier.scala:184-251 / TaxonCounts output strings.
 // Same private-slot + ends[] contract as stpu_output_lines_runs. Two
 // passes per row: a cheap k-mer count pass for the length column (which

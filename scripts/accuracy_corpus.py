@@ -22,7 +22,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from slacken_tpu.analysis.experiment import run_experiment
+    from slacken.analysis.experiment import run_experiment
 
     out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

@@ -23,11 +23,11 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from slacken_tpu.analysis.mapping_comparison import MappingComparison
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-    from slacken_tpu.dynamic import ClassifiedReadCount, Dynamic
-    from slacken_tpu.index import IndexParams, KeyValueIndex
-    from slacken_tpu.taxonomy import Taxonomy
+    from slacken.analysis.mapping_comparison import MappingComparison
+    from slacken.classify import Classifier, ClassifyParams, Fragment
+    from slacken.dynamic import ClassifiedReadCount, Dynamic
+    from slacken.index import IndexParams, KeyValueIndex
+    from slacken.taxonomy import Taxonomy
 
     rng = np.random.default_rng(11)
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -19,8 +19,8 @@ def main():
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    from slacken_tpu.index import KeyValueIndex
-    from slacken_tpu.ops import lookup as lookup_ops
+    from slacken.index import KeyValueIndex
+    from slacken.ops import lookup as lookup_ops
 
     loc = sys.argv[1]
     idx = KeyValueIndex.load(loc)
@@ -36,7 +36,7 @@ def main():
     if n and int(keys.max()).bit_length() > 2 * p.m:
         print(f"ERROR: key wider than 2m bits ({int(keys.max()).bit_length()})")
         errors += 1
-    from slacken_tpu.ops.minimizers import space_mask_int
+    from slacken.ops.minimizers import space_mask_int
 
     mask = np.uint64(space_mask_int(p.m, p.spaces))
     if n and np.any(keys & ~mask):

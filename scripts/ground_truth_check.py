@@ -52,8 +52,8 @@ def distinct_canonical_kmers(seqs, k: int) -> int:
     device scan (m=k, spaces=0, toggle=0 -> priority == canonical k-mer)."""
     import numpy as np
 
-    from slacken_tpu.ops import encode
-    from slacken_tpu.ops.minimizers import MinimizerParams, window_minimizers
+    from slacken.ops import encode
+    from slacken.ops.minimizers import MinimizerParams, window_minimizers
 
     if k > 31:
         mp = MinimizerParams(k=k, m=k, spaces=0, toggle_mask=0)

@@ -10,9 +10,9 @@ production big-build machinery end-to-end:
   * classify of a simulated+real read mix against the big index
 
 Prints one JSON dict with measured throughputs and sizes; used to fill the
-scale section of docs/PERF.md. Reference bar: 2,000-30,000 buckets and a
-1.8 TB library (/root/reference/README.md:508,517) — this host's 4-core CPU
-(or one v5e chip) is a single executor's worth of that cluster.
+scale section of PERF.md. Reference bar: 2,000-30,000 buckets and a
+1.8 TB library (reference README.md:508,517) — one host with one GPU is a
+single executor's worth of that cluster.
 
 Usage: python scripts/scale_bench.py [--gbp 0.4] [--spill] [--shards 256]
        [--platform cpu] [--reads 200000] [--out scale.json]
@@ -63,10 +63,10 @@ def main():
     if args.platform:
         jax.config.update("jax_platforms", args.platform)
 
-    from slacken_tpu.classify import Classifier, ClassifyParams
-    from slacken_tpu.index import IndexParams, KeyValueIndex
-    from slacken_tpu.taxonomy import Taxonomy
-    from slacken_tpu import native
+    from slacken.classify import Classifier, ClassifyParams
+    from slacken.index import IndexParams, KeyValueIndex
+    from slacken.taxonomy import Taxonomy
+    from slacken import native
 
     total_bp = int(args.gbp * 1e9)
     nodes = [(1, 1, "root")] + [
@@ -117,7 +117,7 @@ def main():
     for j, (taxon, seq) in enumerate(lib_iter):
         if j >= n_src:
             break
-        from slacken_tpu.ops import encode as enc
+        from slacken.ops import encode as enc
 
         codes_full = enc.encode_seq(seq[: 2_000_000])
         starts = rng.integers(0, len(codes_full) - 101, per)
@@ -131,8 +131,7 @@ def main():
         ))
     n_reads = sum(len(p) for p in sim)
 
-    cls = Classifier(idx, probe=args.probe, target_batch_bp=1 << 22
-                     if jax.default_backend() != "cpu" else 1 << 20)
+    cls = Classifier(idx, probe=args.probe)
     cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
     outdir = os.path.join(work, "cls_out")
     cls.classify_and_write_packed(sim[:1], outdir + "/warm", cpar)

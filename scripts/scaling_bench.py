@@ -3,11 +3,12 @@
 1..N devices with the ring-sharded index and report weak-scaling efficiency
 (the BASELINE north star asks for >=80% at N>=2).
 
-On a real TPU pod this measures ICI ring performance; on a single-host
-checkout it can still validate the collective path with virtual CPU devices:
+On a multi-GPU host this measures the ring over the device interconnect;
+on a CPU-only host it can still validate the collective path with virtual
+CPU devices:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-        python scripts/scaling_bench.py --cpu
+        python scripts/scaling_bench.py --cpu --index idx
 (virtual devices share the host's cores, so CPU efficiency numbers are not
 meaningful — use them only to check the path runs.)
 """
@@ -25,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cpu", action="store_true", help="force the CPU backend")
-    ap.add_argument("--index", default="/root/repo/.bench_cache/idx")
+    ap.add_argument("--index", required=True, help="saved index directory")
     ap.add_argument("--reads-per-device", type=int, default=8192)
     args = ap.parse_args()
 
@@ -36,16 +37,17 @@ def main():
     devs = jax.devices()
     print(f"devices: {len(devs)} x {devs[0].platform}", file=sys.stderr)
 
-    from slacken_tpu.index import KeyValueIndex
-    from slacken_tpu.inputs import packed_reads_from_file
-    from slacken_tpu.parallel import mesh as pmesh
+    from slacken.analysis.experiment import background_reads
+    from slacken.index import KeyValueIndex
+    from slacken.ops import encode
+    from slacken.parallel import mesh as pmesh
 
     idx = KeyValueIndex.load(args.index)
     mp = idx.params.minimizer_params
     table = idx.taxonomy.rpath_table()
 
-    packed = list(packed_reads_from_file("/root/reference/testData/ERR599052_10k.fastq"))
-    codes_all = np.concatenate([p.codes for p in packed])
+    reads = background_reads(np.random.default_rng(0), 10_000, read_len=101)
+    codes_all, _ = encode.pack_batch([encode.encode_seq(f.seq) for f in reads], 128)
 
     base_rate = None
     for n in [1, 2, 4, 8]:
@@ -68,7 +70,7 @@ def main():
                 table,
             )
         else:
-            # the production accelerator config: per-shard tiled tables
+            # the GPU config: per-shard tiled tables
             tables, tile = pmesh.shard_tiled_tables(sk, st, routers)
             ring = pmesh.classify_ring_fn(
                 m, mp, 32, rounds, rbits, probe=("tiled", tile)
@@ -84,10 +86,10 @@ def main():
         if base_rate is None:
             base_rate = rate
         eff = rate / (base_rate * n)
-        # per-hop ICI payload: compacted (hi, lo, acc) x span_query_cap
+        # per-hop interconnect payload: compacted (hi, lo, acc) x span_query_cap
         # entries vs the uncompacted per-position rotation
         npos = codes.shape[1] * (rows // n)
-        from slacken_tpu.ops import lookup as lookup_ops
+        from slacken.ops import lookup as lookup_ops
 
         hop_bytes = 12 * lookup_ops.span_query_cap(npos)
         full_bytes = 12 * npos

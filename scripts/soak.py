@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Full-system soak: 500 Mbp library build + 2M mutated reads classified in
-detailed multi-sample mode at 2 thresholds (run time ~11 min on 4 CPU cores;
-see STATUS.md for reference numbers).
+detailed multi-sample mode at 2 thresholds, on the CPU backend (run time
+~11 min on 4 CPU cores).
 
     PYTHONPATH=. python scripts/soak.py
 """
@@ -12,10 +12,10 @@ import jax
 jax.config.update('jax_platforms','cpu')
 def log(m): print(f"[{time.time()-T0:7.1f}s] {m}", flush=True)
 T0=time.time()
-from slacken_tpu.index import IndexParams, KeyValueIndex
-from slacken_tpu.taxonomy import Taxonomy
-from slacken_tpu.classify import Classifier, ClassifyParams
-from slacken_tpu import native
+from slacken.index import IndexParams, KeyValueIndex
+from slacken.taxonomy import Taxonomy
+from slacken.classify import Classifier, ClassifyParams
+from slacken import native
 
 rng = np.random.default_rng(99)
 lut = np.frombuffer(b'ACGT', dtype=np.uint8)
@@ -31,7 +31,7 @@ idx.save('/tmp/soak_idx')
 log("index saved")
 
 # 2M mutated reads across 4 "samples"
-from slacken_tpu.ops import encode as enc
+from slacken.ops import encode as enc
 packs = []
 per = 100000
 for chunk in range(20):

@@ -34,9 +34,9 @@ def main():
 
     import numpy as np
 
-    sys.path.insert(0, "/root/repo")
-    from slacken_tpu.parallel import mesh as pmesh
-    from slacken_tpu.parallel import multihost
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from slacken.parallel import mesh as pmesh
+    from slacken.parallel import multihost
 
     ctx = multihost.HostContext(
         jax.process_index(), jax.process_count(),
@@ -56,7 +56,7 @@ def main():
     hi = b * (pid + 1) // n_procs
     codes = multihost.global_rows(codes_all[lo:hi], mesh)
 
-    from slacken_tpu.taxonomy import Taxonomy
+    from slacken.taxonomy import Taxonomy
 
     tax = Taxonomy.load(os.path.join(workdir, "idx_sharded", "taxonomy"))
     table = tax.rpath_table()

@@ -3,15 +3,15 @@ import os
 
 import numpy as np
 
-from slacken_tpu.analysis.cami import CAMIToKrakenReport
-from slacken_tpu.analysis.display import filter_report
-from slacken_tpu.analysis.mapping_comparison import (
+from slacken.analysis.cami import CAMIToKrakenReport
+from slacken.analysis.display import filter_report
+from slacken.analysis.mapping_comparison import (
     MappingComparison,
     hit_category,
 )
-from slacken_tpu.analysis.migration import MinimizerMigration
-from slacken_tpu.analysis.unifrac import UniFrac
-from slacken_tpu.taxonomy import Taxonomy
+from slacken.analysis.migration import MinimizerMigration
+from slacken.analysis.unifrac import UniFrac
+from slacken.taxonomy import Taxonomy
 from test_taxonomy import random_taxonomy
 
 
@@ -103,7 +103,7 @@ def test_unifrac():
 
 
 def test_migration(rng, tmp_path):
-    from slacken_tpu.index import IndexParams, KeyValueIndex
+    from slacken.index import IndexParams, KeyValueIndex
     from test_index import make_genomes
 
     t = random_taxonomy(rng)
@@ -201,7 +201,7 @@ def test_accuracy_experiment_two_step_beats_one_step():
     pass on read sensitivity, and the gold-set index bounds both. Small
     reproduction of scripts/accuracy_corpus.py (which writes the checked-in
     metrics/All_metrics_synth.tsv at full scale)."""
-    from slacken_tpu.analysis.experiment import run_experiment
+    from slacken.analysis.experiment import run_experiment
 
     rows = run_experiment(
         n_genera=6, genome_len=120_000, n_present=3, n_reads=2000,
@@ -225,3 +225,23 @@ def test_accuracy_experiment_two_step_beats_one_step():
     assert by[("2step", "Species")]["per_read"].sensitivity > (
         by[("1step", "Species")]["per_read"].sensitivity + 0.2
     )
+
+
+def test_background_reads_seeded_and_shaped():
+    """The off-library background generator: same seed, same reads; an
+    Illumina-like base composition, a length spread reaching below k, and
+    N runs in a small share of reads."""
+    from slacken.analysis.experiment import BACKGROUND_BASE_P, background_reads
+
+    a = background_reads(np.random.default_rng(3), 4000)
+    assert a == background_reads(np.random.default_rng(3), 4000)
+    assert a != background_reads(np.random.default_rng(4), 4000)
+    lens = np.array([len(f.seq) for f in a])
+    assert lens.max() == 150 and lens.min() >= 20 and (lens < 35).any()
+    assert 0.15 < (lens < 150).mean() < 0.25
+    with_n = np.mean(["N" in f.seq for f in a])
+    assert 0.02 < with_n < 0.08
+    bases = "".join(f.seq for f in a).replace("N", "")
+    freq = [bases.count(b) / len(bases) for b in "ACGT"]
+    assert np.allclose(freq, BACKGROUND_BASE_P, atol=0.01)
+    assert len({f.title for f in a}) == len(a)

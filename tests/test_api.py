@@ -1,7 +1,7 @@
 import numpy as np
 
-from slacken_tpu.api import Slacken
-from slacken_tpu.index import IndexParams, KeyValueIndex
+from slacken.api import Slacken
+from slacken.index import IndexParams, KeyValueIndex
 from test_index import make_genomes
 from test_taxonomy import random_taxonomy
 
@@ -31,7 +31,7 @@ def test_api_roundtrip(rng, tmp_path):
 
 
 def test_check_input(tmp_path, rng):
-    from slacken_tpu.inputs import GenomeLibrary, check_input
+    from slacken.inputs import GenomeLibrary, check_input
     from test_inputs_cli import write_fasta
 
     lib = tmp_path / "lib"

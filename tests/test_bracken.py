@@ -1,8 +1,8 @@
 import numpy as np
 
 import oracle
-from slacken_tpu.bracken import BrackenWeights, write_kmer_distrib
-from slacken_tpu.index import IndexParams, KeyValueIndex
+from slacken.bracken import BrackenWeights, write_kmer_distrib
+from slacken.index import IndexParams, KeyValueIndex
 from test_index import make_genomes, oracle_index
 from test_taxonomy import random_taxonomy
 
@@ -165,8 +165,8 @@ def test_cli_bracken_build_gradual_default(rng, tmp_path, monkeypatch):
     """CLI bracken-build must run the gradual path by default (reference:
     buildAndWriteWeights(..., gradual = true), Slacken.scala:276) and honor
     --no-gradual."""
-    from slacken_tpu import cli
-    from slacken_tpu import bracken as bracken_mod
+    from slacken import cli
+    from slacken import bracken as bracken_mod
     from test_inputs_cli import write_fasta
 
     t = random_taxonomy(rng)
@@ -236,11 +236,11 @@ def test_device_path_matches_numpy(rng):
 
 
 def test_fragment_kernel_tiled_matches_routed(rng):
-    """Bracken's tiled fragment-scan kernel (TPU path) must equal the
+    """Bracken's tiled fragment-scan kernel (GPU path) must equal the
     routed one."""
-    from slacken_tpu.bracken import _fragment_kernel, _fragment_kernel_tiled
-    from slacken_tpu.index import IndexParams, KeyValueIndex
-    from slacken_tpu.ops import encode as enc
+    from slacken.bracken import _fragment_kernel, _fragment_kernel_tiled
+    from slacken.index import IndexParams, KeyValueIndex
+    from slacken.ops import encode as enc
     from test_index import make_genomes
     from test_taxonomy import random_taxonomy
 

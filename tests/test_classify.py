@@ -1,10 +1,11 @@
 import math
 
 import numpy as np
+import pytest
 
 import oracle
-from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-from slacken_tpu.index import IndexParams, KeyValueIndex
+from slacken.classify import Classifier, ClassifyParams, Fragment
+from slacken.index import IndexParams, KeyValueIndex
 from test_index import make_genomes, oracle_index, random_genome
 from test_taxonomy import random_taxonomy
 
@@ -224,7 +225,7 @@ def test_write_outputs(rng, tmp_path):
 def test_aggregated_reports_match_per_read(rng, tmp_path):
     """Streaming reports-only aggregation must produce the same kreports as
     the per-read path."""
-    from slacken_tpu import native
+    from slacken import native
 
     t, parents, genomes, idx, idx_map = setup(rng)
     reads = []
@@ -237,7 +238,7 @@ def test_aggregated_reports_match_per_read(rng, tmp_path):
                 __import__("numpy").stack(
                     [
                         __import__("numpy").pad(
-                            __import__("slacken_tpu.ops.encode", fromlist=["encode_seq"]).encode_seq(s),
+                            __import__("slacken.ops.encode", fromlist=["encode_seq"]).encode_seq(s),
                             (0, 128 - len(s)),
                             constant_values=4,
                         )
@@ -321,7 +322,7 @@ def test_probe_and_transfer_variants_identical(rng):
             for a, b in zip(base[conf], got[conf]):
                 assert a == b, (kw, conf, a, b)
 
-    # dense tiled probing (the TPU default) must also match exactly
+    # dense tiled probing (the GPU default) must also match exactly
     import os
 
     os.environ["STPU_TILED_DENSE"] = "1"
@@ -337,7 +338,7 @@ def test_probe_and_transfer_variants_identical(rng):
 
 
 def test_pack_2bit_roundtrip(rng):
-    from slacken_tpu.ops import encode as enc
+    from slacken.ops import encode as enc
 
     codes = rng.integers(0, 5, size=(16, 128)).astype(np.uint8)
     packed, valid = enc.pack_2bit(codes)
@@ -347,8 +348,8 @@ def test_pack_2bit_roundtrip(rng):
 
 
 def test_bucketed_lookup_matches_routed(rng):
-    from slacken_tpu.ops import lookup as lookup_ops
-    from slacken_tpu.ops.u64 import U64
+    from slacken.ops import lookup as lookup_ops
+    from slacken.ops.u64 import U64
     import jax.numpy as jnp
 
     keys = np.unique(rng.integers(0, 1 << 62, 5000).astype(np.uint64))
@@ -389,7 +390,7 @@ def test_fits_hashed_rows_bounds_actual_table(rng):
     """The shared HBM-fit estimate must bound the REAL table the auto build
     produces (the guard's 2x growth allowance): for a range of key counts,
     actual bytes <= the allowance used by fits_hashed_rows."""
-    from slacken_tpu.ops import lookup as lookup_ops
+    from slacken.ops import lookup as lookup_ops
 
     for n in (1000, 50_000, 300_000, 1_000_000):
         keys = np.unique(rng.integers(0, 1 << 62, int(n * 1.1)).astype(np.uint64))[:n]
@@ -402,7 +403,7 @@ def test_fits_hashed_rows_bounds_actual_table(rng):
 def test_compact_hits_rounds_matches_sort(rng):
     """The production successive-minimum compaction must stay bit-identical
     to the sort-based reference implementation (ops/resolve.py)."""
-    from slacken_tpu.ops.resolve import (
+    from slacken.ops.resolve import (
         INVALID_WINDOW,
         compact_hits_rounds,
         compact_hits_sort,
@@ -428,8 +429,8 @@ def test_stream_detailed_lines_match_api(rng, tmp_path):
     lines the per-read API produces (order within each sample preserved)."""
     import gzip
 
-    from slacken_tpu import native
-    from slacken_tpu.ops import encode as enc
+    from slacken import native
+    from slacken.ops import encode as enc
 
     t, parents, genomes, idx, idx_map = setup(rng)
     reads = []
@@ -462,7 +463,7 @@ def test_window_rle_roundtrip(rng):
     """ops.rle encode/decode must reconstruct window_taxa exactly, report
     per-row run counts, and flag cap overflow instead of corrupting."""
     import jax.numpy as jnp
-    from slacken_tpu.ops import rle as rle_ops
+    from slacken.ops import rle as rle_ops
 
     B, L = 16, 40
     cap = rle_ops.DEFAULT_RUNS_PER_ROW
@@ -524,8 +525,8 @@ def test_window_codes_roundtrip(rng):
     batch.overflow — see _hit_pairs)."""
     import jax.numpy as jnp
 
-    from slacken_tpu.classify import _decode_window_codes, _window_codes_kernel
-    from slacken_tpu.ops.resolve import INVALID_WINDOW
+    from slacken.classify import _decode_window_codes, _window_codes_kernel
+    from slacken.ops.resolve import INVALID_WINDOW
 
     B, L, T = 12, 40, 8
     hit_taxa = np.zeros((B, T), np.int32)
@@ -619,8 +620,8 @@ def test_streaming_detailed_dense_native_identical(rng, monkeypatch, tmp_path):
     reads, N-heavy rows, classified and unclassified lines."""
     import gzip
 
-    from slacken_tpu import native
-    from slacken_tpu.ops import encode
+    from slacken import native
+    from slacken.ops import encode
 
     t, parents, genomes, idx, idx_map = setup(rng)
 
@@ -685,8 +686,8 @@ def test_streaming_detailed_wide_index_identical(rng, monkeypatch, tmp_path):
     agnostic."""
     import gzip
 
-    from slacken_tpu import native
-    from slacken_tpu.ops import encode
+    from slacken import native
+    from slacken.ops import encode
 
     t = random_taxonomy(rng)
     genomes = make_genomes(rng, t, n_genomes=4, length=700)
@@ -763,3 +764,27 @@ def test_hit_runs_output_identical(rng, monkeypatch):
     for conf in cpar.thresholds:
         for a, b in zip(base[conf], runs[conf]):
             assert a == b, (conf, a, b)
+
+
+@pytest.mark.parametrize(
+    "platform, limit, per_device, want",
+    [
+        ("cpu", None, None, "routed"),
+        ("gpu", 64 << 30, None, "hashed1"),
+        ("gpu", 1 << 16, None, "tiled"),
+        ("gpu", 1 << 26, None, "hashed1"),
+        ("gpu", 1 << 26, 10**7, "tiled"),
+    ],
+)
+def test_default_probe_policy(rng, monkeypatch, platform, limit, per_device, want):
+    """The probe picked when none is named: routed on the CPU; on the GPU
+    hashed1, or tiled once the hashed1 table (of the whole index, or of the
+    largest per-device shard) would crowd device memory."""
+    from slacken import utils
+    from slacken.classify import default_probe
+
+    _, _, _, idx, _ = setup(rng, n_genomes=2, glen=300)
+    monkeypatch.setattr(utils, "backend", lambda: platform)
+    if limit is not None:
+        monkeypatch.setattr(utils, "device_memory_bytes", lambda: limit)
+    assert default_probe(idx, keys_per_device=per_device) == want

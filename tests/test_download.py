@@ -10,8 +10,8 @@ import tarfile
 import numpy as np
 import pytest
 
-from slacken_tpu import download
-from slacken_tpu.download import LibraryDownloader, make_fai, mask_low_complexity
+from slacken import download
+from slacken.download import LibraryDownloader, make_fai, mask_low_complexity
 
 
 def make_taxdump():
@@ -80,7 +80,7 @@ def test_taxonomy_and_library(tmp_path):
     tdir = dl.download_taxonomy()
     for f in ("nodes.dmp", "names.dmp", "merged.dmp"):
         assert os.path.exists(os.path.join(tdir, f))
-    from slacken_tpu.taxonomy import Taxonomy
+    from slacken.taxonomy import Taxonomy
 
     t = Taxonomy.load(tdir)
     assert t.primary[3] == 2  # merged.dmp honored
@@ -111,7 +111,7 @@ def test_taxonomy_and_library(tmp_path):
 
 def test_downloaded_library_builds_and_classifies(tmp_path):
     """End-to-end: download -> build -> classify via the real CLI."""
-    from slacken_tpu import cli
+    from slacken import cli
 
     fake = FakeNCBI()
     dl = LibraryDownloader(str(tmp_path), fetcher=fake, progress=False)
@@ -148,7 +148,7 @@ def test_make_fai(tmp_path):
     p = tmp_path / "g.fna"
     p.write_text(">s1 desc\nACGTACGTAC\nACGTA\n>s2\nGG\n")
     make_fai(str(p))
-    from slacken_tpu.inputs import read_fai
+    from slacken.inputs import read_fai
 
     fai = read_fai(str(p) + ".fai")
     assert fai["s1"] == (15, 9, 10, 11)
@@ -170,7 +170,7 @@ def test_mask_low_complexity():
 
 
 def test_mask_fasta_roundtrip():
-    from slacken_tpu.download import mask_low_complexity_fasta
+    from slacken.download import mask_low_complexity_fasta
 
     data = b">s1\n" + b"ACGT" * 100 + b"\n" + b"A" * 200 + b"\n"
     out = mask_low_complexity_fasta(data)

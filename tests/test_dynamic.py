@@ -1,9 +1,10 @@
 import os
 
 import numpy as np
+import pytest
 
-from slacken_tpu.classify import ClassifyParams, Fragment
-from slacken_tpu.dynamic import (
+from slacken.classify import ClassifyParams, Fragment
+from slacken.dynamic import (
     ClassifiedReadCount,
     Dynamic,
     GoldSetOptions,
@@ -11,7 +12,7 @@ from slacken_tpu.dynamic import (
     MinimizerFraction,
     MinimizerTotalCount,
 )
-from slacken_tpu.index import IndexParams, KeyValueIndex
+from slacken.index import IndexParams, KeyValueIndex
 from test_index import make_genomes
 from test_taxonomy import random_taxonomy
 
@@ -93,7 +94,7 @@ def test_minimizer_fraction_filter_semantics(rng, tmp_path):
     cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
     dyn = Dynamic(idx, lib, 8, MinimizerFraction(0.5), cpar, None, str(tmp_path / "o"))
     counts = dyn.distinct_minimizers_per_taxon(frags)
-    from slacken_tpu.report import TreeAggregator
+    from slacken.report import TreeAggregator
 
     hits = TreeAggregator(t, counts.items()).clade_totals
     tt, cc = np.unique(idx.taxa, return_counts=True)
@@ -126,7 +127,7 @@ def test_gold_set_promotion(rng, tmp_path):
     """Gold taxa missing from the library promote up the lineage; the
     promote-rank filter keeps only promotions at/below the given rank
     (Dynamic.scala:284-312)."""
-    from slacken_tpu.taxonomy import Taxonomy
+    from slacken.taxonomy import Taxonomy
 
     nodes = [
         (1, 1, "root"),
@@ -149,8 +150,8 @@ def test_gold_set_promotion(rng, tmp_path):
     gold_file = tmp_path / "gold.txt"
     gold_file.write_text("200\n210\n")  # two strains, neither in library
 
-    from slacken_tpu.classify import ClassifyParams
-    from slacken_tpu.dynamic import ClassifiedReadCount, Dynamic, GoldSetOptions
+    from slacken.classify import ClassifyParams
+    from slacken.dynamic import ClassifiedReadCount, Dynamic, GoldSetOptions
 
     # no promote rank: promoted set dropped; strains filtered at species rank
     # (depth of strain inherits species depth 8, so they pass the rank filter)
@@ -188,8 +189,8 @@ def test_two_step_packed_factory_matches_fragments(rng, tmp_path):
     import glob
     import gzip
 
-    from slacken_tpu import native
-    from slacken_tpu.ops import encode as enc
+    from slacken import native
+    from slacken.ops import encode as enc
 
     t, genomes, idx, lib, frags = setup(rng)
     cpar = ClassifyParams(thresholds=[0.0], per_read_output=False)
@@ -237,7 +238,7 @@ def test_cli_mesh_classify2_byte_identical(rng, tmp_path):
     counting (MeshClassifier step 1)."""
     import gzip
 
-    from slacken_tpu import cli
+    from slacken import cli
     from test_index import random_genome
     from test_inputs_cli import write_fasta, write_fastq
 
@@ -258,16 +259,15 @@ def test_cli_mesh_classify2_byte_identical(rng, tmp_path):
     idx_loc = str(tmp_path / "idx")
     assert cli.main(["build", "-i", idx_loc, "-l", str(lib), "-t", str(taxdir)]) == 0
 
-    # reads from two of the four genomes, plus real Illumina background
+    # reads from two of the four genomes, plus off-library background
+    from slacken.analysis.experiment import background_reads
+
     reads = []
     for j in range(60):
         g = genomes[chosen[j % 2]]
         s = int(rng.integers(0, len(g) - 101))
         reads.append((f"sim{j}", g[s : s + 101]))
-    with open("/root/reference/testData/ERR599052_10k.fastq") as f:
-        lines = f.read().splitlines()
-    for j in range(0, 160, 4):
-        reads.append((lines[j][1:], lines[j + 1]))
+    reads += [(f.title, f.seq) for f in background_reads(rng, 40, read_len=101)]
     fq = str(tmp_path / "reads.fastq")
     write_fastq(fq, reads)
 
@@ -309,10 +309,10 @@ def test_cli_mesh_classify2_byte_identical(rng, tmp_path):
 
 
 def test_span_hits_tiled_matches_routed(rng):
-    """The tiled span-hit counting kernel (TPU path) must equal the routed
+    """The tiled span-hit counting kernel (GPU path) must equal the routed
     one used on CPU."""
-    from slacken_tpu.dynamic import _span_hits_kernel, _span_hits_kernel_tiled
-    from slacken_tpu.ops import encode as enc
+    from slacken.dynamic import _span_hits_kernel, _span_hits_kernel_tiled
+    from slacken.ops import encode as enc
 
     t, genomes, idx, lib, frags = setup(rng)
     rows = np.stack(
@@ -331,3 +331,30 @@ def test_span_hits_tiled_matches_routed(rng):
     )
     for x, y in zip(a, b):
         assert np.array_equal(np.asarray(x), np.asarray(y))
+
+
+@pytest.mark.parametrize("wide", [False, True])
+@pytest.mark.parametrize("probe", ["tiled", "hashed1"])
+def test_span_counts_follow_probe(rng, wide, probe):
+    """Single-device step-1 counting runs the span kernel of the Classifier's
+    probe (wide indexes have no tiled span kernel and fall to routed); every
+    probe counts exactly what the CPU default (routed) counts."""
+    t = random_taxonomy(rng)
+    genomes = make_genomes(rng, t, n_genomes=5, length=900)
+    params = IndexParams(k=45, m=33, spaces=5) if wide else IndexParams()
+    idx = KeyValueIndex.build(genomes, params, t)
+    assert idx.wide == wide
+    frags = []
+    for i in range(16):
+        _, g = genomes[int(rng.integers(len(genomes)))]
+        s = int(rng.integers(0, len(g) - 101))
+        frags.append(Fragment(f"r{i}", g[s : s + 101]))
+
+    def counter(p):
+        d = Dynamic.__new__(Dynamic)
+        d.base, d.rank_depth, d.devices, d.layout, d.probe = idx, 0, None, None, p
+        return d
+
+    want = counter(None).total_minimizers_per_taxon(frags)
+    assert want and sum(want.values()) > 20
+    assert counter(probe).total_minimizers_per_taxon(frags) == want

@@ -3,10 +3,10 @@ kreport, kmer_distrib) so later optimisation rounds cannot drift them."""
 
 import numpy as np
 
-from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-from slacken_tpu.index import IndexParams, KeyValueIndex
-from slacken_tpu.report import KrakenReport
-from slacken_tpu.taxonomy import Taxonomy
+from slacken.classify import Classifier, ClassifyParams, Fragment
+from slacken.index import IndexParams, KeyValueIndex
+from slacken.report import KrakenReport
+from slacken.taxonomy import Taxonomy
 
 
 def fixed_tax():
@@ -58,7 +58,7 @@ def test_kraken_line_and_report_golden(tmp_path):
 
 
 def test_kmer_distrib_golden(tmp_path):
-    from slacken_tpu.bracken import write_kmer_distrib
+    from slacken.bracken import write_kmer_distrib
 
     counts = {(100, 100): 90, (10, 100): 5, (0, 100): 5, (101, 101): 50}
     out = str(tmp_path / "d.kmer_distrib")

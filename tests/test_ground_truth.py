@@ -28,7 +28,7 @@ def test_distinct_canonical_kmer_counting_method(rng):
     """The counting method itself, validated on a sequence where the answer
     is enumerable: distinct canonical k-mers of a random sequence must equal
     a naive python set of min(kmer, revcomp) over valid windows."""
-    from slacken_tpu.ops import encode
+    from slacken.ops import encode
 
     lut = np.frombuffer(b"ACGT", dtype=np.uint8)
     seq = lut[rng.integers(0, 4, 5000)].tobytes().decode()

@@ -1,9 +1,9 @@
 import numpy as np
 
 import oracle
-from slacken_tpu.index import IndexParams, KeyValueIndex
-from slacken_tpu.ops import lookup as lookup_ops
-from slacken_tpu.ops import u64
+from slacken.index import IndexParams, KeyValueIndex
+from slacken.ops import lookup as lookup_ops
+from slacken.ops import u64
 from test_taxonomy import random_taxonomy
 
 
@@ -123,7 +123,7 @@ def test_build_skips_undefined_and_filtered(rng):
 
 
 def test_full_records_sidecar(rng, tmp_path):
-    from slacken_tpu.index import KeyValueIndex as KVI
+    from slacken.index import KeyValueIndex as KVI
 
     t = random_taxonomy(rng)
     genomes = make_genomes(rng, t, n_genomes=5, length=500)
@@ -170,7 +170,7 @@ def test_merged_dmp_canonicalization(rng):
     parents = np.concatenate([t.parents, np.zeros(5, np.int32)])
     rank_depth = np.concatenate([t.rank_depth, np.full(5, -128, np.int16)])
     primary[n + 2] = real
-    from slacken_tpu.taxonomy import Taxonomy
+    from slacken.taxonomy import Taxonomy
 
     t2 = Taxonomy(parents, rank_depth, t.names + [None] * 5, primary, None)
     g = random_genome(rng, 400)
@@ -206,7 +206,7 @@ def test_remote_storage_memory_fs(rng):
     import pytest
 
     fsspec = pytest.importorskip("fsspec")
-    from slacken_tpu import storage
+    from slacken import storage
 
     t = random_taxonomy(rng)
     genomes = make_genomes(rng, t, n_genomes=3, length=300)
@@ -245,7 +245,7 @@ def test_reduce_records_final_run_straddles_chunk(rng):
     """A run of equal keys straddling a chunk boundary — including the
     ARRAY-FINAL run, which used to IndexError in the boundary snap — must
     reduce exactly like the unchunked path."""
-    from slacken_tpu.index import reduce_records, reduce_records_wide
+    from slacken.index import reduce_records, reduce_records_wide
 
     t = random_taxonomy(rng)
     leaves = [x for x in t.taxa() if t.is_leaf(x)]
@@ -286,7 +286,7 @@ def test_sharded_persistence_keeps_ordering_lut(rng, tmp_path):
     assert got.ordering_lut is not None
     assert np.array_equal(got.ordering_lut, idx.ordering_lut)
 
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
+    from slacken.classify import Classifier, ClassifyParams, Fragment
 
     _, g = genomes[0]
     frags = [Fragment("r", g[:101])]
@@ -299,7 +299,7 @@ def test_sharded_persistence_keeps_ordering_lut(rng, tmp_path):
 def test_spill_collector_cleans_stale_files(rng, tmp_path):
     """A crashed build's leftover spill files must not merge into the next
     build using the same --spill-dir."""
-    from slacken_tpu.index import SpillCollector
+    from slacken.index import SpillCollector
 
     t = random_taxonomy(rng)
     d = str(tmp_path / "spill")
@@ -400,7 +400,7 @@ def test_build_trace_phases(rng, monkeypatch):
 
 
 def test_build_flat_d2h_identical(rng, monkeypatch):
-    """The ravel-before-transfer final d2h (TPU default) is a pure layout
+    """The ravel-before-transfer final d2h (GPU default) is a pure layout
     change: forced on via STPU_BUILD_FLAT_D2H it must produce the identical
     index on any backend."""
     t = random_taxonomy(rng)
@@ -419,7 +419,7 @@ def test_device_hashed_rows_builder_matches_host(rng):
     """build_hashed_rows_device (the build->serve path's on-device table
     construction) must be bit-identical to the host builder, including the
     auto row_bits/tile growth policy."""
-    from slacken_tpu.ops import lookup
+    from slacken.ops import lookup
 
     for n in (0, 7, 1000, 50000):
         keys = np.unique(rng.integers(1, 1 << 62, max(n, 1) * 2).astype(np.uint64))[:n]
@@ -436,7 +436,7 @@ def test_wide_device_hashed_rows_builder_matches_host(rng):
     """build_hashed_rows_wide_device (wide build->serve on-device table
     construction) must be bit-identical to the host builder, including the
     auto row_bits/tile growth policy."""
-    from slacken_tpu.ops import lookup
+    from slacken.ops import lookup
 
     for n in (0, 7, 1000, 50000):
         hi = rng.integers(1, 1 << 62, max(n, 1) * 2).astype(np.uint64)
@@ -458,7 +458,7 @@ def test_wide_device_resident_build_serves_without_host_roundtrip(rng, monkeypat
     """Wide STPU_DEVICE_RESIDENT builds: [5, cap] raw-limb records stay on
     device, the hashed1_wide probe serves straight from them, and lazy
     materialization yields the host-path [N, 2] keys exactly."""
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
+    from slacken.classify import Classifier, ClassifyParams, Fragment
 
     t = random_taxonomy(rng)
     genomes = make_genomes(rng, t, n_genomes=4, length=600)
@@ -492,7 +492,7 @@ def test_device_resident_build_serves_without_host_roundtrip(rng, monkeypatch):
     hashed1 probe serves straight from them (no host keys materialized),
     lazy materialization equals the host-path build exactly, and save()
     still works (it materializes on demand)."""
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
+    from slacken.classify import Classifier, ClassifyParams, Fragment
 
     t = random_taxonomy(rng)
     genomes = make_genomes(rng, t, n_genomes=4, length=600)

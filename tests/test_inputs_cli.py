@@ -4,7 +4,7 @@ import os
 import numpy as np
 import pytest
 
-from slacken_tpu import cli, inputs
+from slacken import cli, inputs
 from test_taxonomy import random_taxonomy
 
 
@@ -146,7 +146,7 @@ def test_cli_respace(library_dir, capsys):
     assert cli.main(["build", "-i", idx_loc, "-l", lib, "-t", taxdir, "-s", "3"]) == 0
     out_loc = str(base / "re_s3")
     assert cli.main(["respace", "-i", idx_loc, "-o", out_loc, "--spaces", "5", "7"]) == 0
-    from slacken_tpu.index import KeyValueIndex
+    from slacken.index import KeyValueIndex
 
     for s in (5, 7):
         ri = KeyValueIndex.load(str(base / f"re_s{s}"))
@@ -155,7 +155,7 @@ def test_cli_respace(library_dir, capsys):
 
 
 def test_indexed_fasta_streaming(tmp_path, rng):
-    from slacken_tpu import inputs
+    from slacken import inputs
 
     seqs = [("chr1", random_genome(rng, 5000)), ("chr2", random_genome(rng, 301))]
     path = tmp_path / "g.fna"
@@ -215,8 +215,8 @@ def test_real_testdata_readers():
     assert reassembled == fa2[0][1]
 
     # native parser agrees with the python reader on real data
-    from slacken_tpu import native
-    from slacken_tpu.ops import encode
+    from slacken import native
+    from slacken.ops import encode
 
     with open(os.path.join(base, "ERR599052_10k.fastq"), "rb") as f:
         packed, consumed = native.pack_fastq_chunk(f.read())

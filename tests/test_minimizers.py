@@ -2,8 +2,8 @@ import numpy as np
 import pytest
 
 import oracle
-from slacken_tpu.ops import encode, minimizers, u64
-from slacken_tpu.ops.minimizers import MinimizerParams
+from slacken.ops import encode, minimizers, u64
+from slacken.ops.minimizers import MinimizerParams
 
 
 def random_dna(rng, n, with_ambiguity=0.0, mixed_case=True):

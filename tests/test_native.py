@@ -1,8 +1,8 @@
 import numpy as np
 import pytest
 
-from slacken_tpu import native
-from slacken_tpu.ops import encode
+from slacken import native
+from slacken.ops import encode
 
 
 def make_fastq(records):
@@ -90,7 +90,7 @@ def test_native_speed(rng):
 
 def test_hit_lines_matches_python(rng):
     """C++ hit-string formatter must be byte-identical to the Python path."""
-    from slacken_tpu.classify import _row_hit_parts, hits_to_strings
+    from slacken.classify import _row_hit_parts, hits_to_strings
 
     k = 35
     B, L = 40, 160
@@ -125,7 +125,7 @@ def test_output_lines_dense_and_gather(rng):
     """stpu_output_lines_dense must emit exactly the Python-composed full
     Kraken lines (header + hits_to_strings), and stpu_gather_rows must
     concatenate arbitrary row subsets in order."""
-    from slacken_tpu.classify import _row_hit_parts, hits_to_strings
+    from slacken.classify import _row_hit_parts, hits_to_strings
 
     k = 35
     B, L = 40, 160
@@ -219,9 +219,9 @@ def test_packed_pairs_match_fragment_path(rng, tmp_path):
     path."""
     import jax
 
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-    from slacken_tpu.index import IndexParams, KeyValueIndex
-    from slacken_tpu.inputs import packed_pairs_from_files
+    from slacken.classify import Classifier, ClassifyParams, Fragment
+    from slacken.index import IndexParams, KeyValueIndex
+    from slacken.inputs import packed_pairs_from_files
     from test_taxonomy import random_taxonomy
     from test_index import make_genomes
 
@@ -260,7 +260,7 @@ def test_packed_pairs_match_fragment_path(rng, tmp_path):
 
 
 def test_radix_sort_kv(rng):
-    from slacken_tpu import native
+    from slacken import native
 
     n = 50_000
     k = rng.integers(0, 1 << 62, n, dtype=np.uint64)

@@ -3,8 +3,8 @@ naive oracle."""
 
 import numpy as np
 
-from slacken_tpu.ops import ordering
-from slacken_tpu.ops.minimizers import MinimizerParams, window_minimizers
+from slacken.ops import ordering
+from slacken.ops.minimizers import MinimizerParams, window_minimizers
 
 
 def codes_of(rng, n, invalid_frac=0.0):
@@ -109,8 +109,8 @@ def test_ordering_index_end_to_end(rng, tmp_path):
     lexicographic == toggle_mask=0 XOR bit-exactly, frequency classifies
     reads to the source taxon or an ancestor, and the rank LUT survives a
     save/load round-trip (MinimizerCLIConf.scala:81-95 `--ordering`)."""
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-    from slacken_tpu.index import IndexParams, KeyValueIndex
+    from slacken.classify import Classifier, ClassifyParams, Fragment
+    from slacken.index import IndexParams, KeyValueIndex
     from test_index import make_genomes
     from test_taxonomy import random_taxonomy
 
@@ -140,7 +140,7 @@ def test_ordering_index_end_to_end(rng, tmp_path):
     assert classify(idx_lex) == classify(idx_xor0)
 
     # frequency ordering: sample the library itself, build, classify
-    from slacken_tpu.ops import encode as encode_ops
+    from slacken.ops import encode as encode_ops
 
     p_freq = IndexParams(k=21, m=9, spaces=2, ordering="frequency")
     mp = p_freq.minimizer_params
@@ -223,8 +223,8 @@ def test_signature_index_build_and_classify(rng, tmp_path):
     """End-to-end: build + save/load + classify with ordering="signature"
     must round-trip and classify library reads (registry parity with the
     reference ADT, package.scala:35-56)."""
-    from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-    from slacken_tpu.index import IndexParams, KeyValueIndex
+    from slacken.classify import Classifier, ClassifyParams, Fragment
+    from slacken.index import IndexParams, KeyValueIndex
     from test_index import make_genomes
     from test_taxonomy import random_taxonomy
 

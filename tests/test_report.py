@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from slacken_tpu.report import KrakenReport, TreeAggregator
+from slacken.report import KrakenReport, TreeAggregator
 from test_taxonomy import random_taxonomy
 
 

@@ -1,15 +1,15 @@
 import numpy as np
 
 import oracle
-from slacken_tpu.index import IndexParams, KeyValueIndex
-from slacken_tpu.stats import (
+from slacken.index import IndexParams, KeyValueIndex
+from slacken.stats import (
     TotalKmerSizeAggregator,
     depth_histograms,
     library_span_data,
     taxon_full_coverage_stats,
     total_kmer_count_report,
 )
-from slacken_tpu.taxonomy import Taxonomy
+from slacken.taxonomy import Taxonomy
 from test_index import make_genomes, random_genome
 from test_taxonomy import random_taxonomy
 

@@ -1,9 +1,9 @@
 import numpy as np
 
 import oracle
-from slacken_tpu import taxonomy as tx
-from slacken_tpu.ops import lca as dlca
-from slacken_tpu.ops import resolve as dresolve
+from slacken import taxonomy as tx
+from slacken.ops import lca as dlca
+from slacken.ops import resolve as dresolve
 
 
 def random_taxonomy(rng, size=40):

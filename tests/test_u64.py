@@ -1,6 +1,6 @@
 import numpy as np
 
-from slacken_tpu.ops import u64
+from slacken.ops import u64
 
 
 def rand_u64s(rng, n):

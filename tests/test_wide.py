@@ -11,10 +11,10 @@ import numpy as np
 import pytest
 
 import oracle
-from slacken_tpu.classify import Classifier, ClassifyParams, Fragment
-from slacken_tpu.index import IndexParams, KeyValueIndex
-from slacken_tpu.ops import encode, minimizers, u128
-from slacken_tpu.ops.minimizers import MinimizerParams
+from slacken.classify import Classifier, ClassifyParams, Fragment
+from slacken.index import IndexParams, KeyValueIndex
+from slacken.ops import encode, minimizers, u128
+from slacken.ops.minimizers import MinimizerParams
 from test_classify import oracle_classify, sample_read
 from test_index import make_genomes, oracle_index
 from test_minimizers import random_dna
